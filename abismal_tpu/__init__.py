@@ -1,9 +1,10 @@
-"""abismal-tpu: a TPU-native bisulfite read-mapping engine.
+"""abismal-tpu: a bisulfite read-mapping engine for an NVIDIA GPU.
 
 A from-scratch re-design of the abismal WGBS read mapper
-(smithlabcode/abismal v3.3.0) for TPU hardware: the hybrid two-letter /
-three-letter hash index lives in HBM, read batches are mapped data-parallel
-under jit/shard_map, and the hot kernels (bisulfite-aware popcount filter,
+(smithlabcode/abismal v3.3.0) as batched device programs (first built for
+a TPU, hence the name): the hybrid two-letter / three-letter hash index
+lives in device memory, read batches are mapped data-parallel under
+jit/shard_map, and the hot kernels (bisulfite-aware popcount filter,
 banded alignment) run on-device, with host-side Python/C++ for I/O, index
 serialization and SAM emission.
 
@@ -13,9 +14,9 @@ Subpackages:
   io         -- FASTA/FASTQ readers, SAM text writer, mapping statistics
   index      -- index build (host + device) and reference-format serialization
   sim        -- WGBS read simulator (bit-compatible with `abismal sim`)
-  map        -- mapping engines: exact oracle and the TPU device pipeline
-  kernels    -- Pallas TPU kernels
-  parallel   -- mesh / sharding helpers for multi-chip runs
+  map        -- mapping engines: exact oracle and the device pipeline
+  kernels    -- Pallas-Triton banded alignment kernels (+ plain-XLA twin)
+  parallel   -- mesh / sharding helpers for multi-device runs
 """
 
 __version__ = "0.1.0"

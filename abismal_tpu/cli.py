@@ -152,10 +152,10 @@ def cmd_map(argv):
                         "longer than this use the host path")
     p.add_argument("--device-align", dest="device_align", default=None,
                    action="store_true",
-                   help="score candidate alignments on the accelerator too "
-                        "(--engine tpu; best for locally attached chips -- "
-                        "on a high-latency link the extra roundtrip can "
-                        "cost more than host alignment)")
+                   help="score candidate alignments on the accelerator on "
+                        "the event-stream path (--engine tpu with "
+                        "ABISMAL_TPU_STAGE2=0; the default fused path "
+                        "always scores on the device)")
     p.add_argument("--mesh", default=None,
                    help="shard unit batches over N local devices with the "
                         "index replicated per chip (--engine tpu; "
@@ -213,6 +213,8 @@ def cmd_map(argv):
         if a.hosts:
             from .parallel.multihost import run_map_multihost
 
+            # one card per device shard process (shard_device_envs); the
+            # coordinator itself never starts JAX
             stats = run_map_multihost(
                 a.index, a.reads_files[0], reads2, a.outfile, command_line,
                 n_hosts=a.hosts, threads_per_host=max(1, a.threads),
@@ -240,6 +242,15 @@ def cmd_map(argv):
             _apply_stats(raw, paired, stats)
         _write_stats(stats, a.stats or None, a.json, paired, a.ambig)
         return 0
+
+    if a.engine in ("tpu", "tpu-replay", "hybrid"):
+        from .map.pipeline import device_backend
+
+        try:
+            device_backend()
+        except RuntimeError as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 1
 
     if a.index:
         if a.verbose:

@@ -126,3 +126,32 @@ def test_fused_stage2_negative_diffs_parity(tmp_path):
     # (anything else and this test pins nothing)
     assert st_h.reads_mapped_unique > 0
     assert tpu.n_fallback < len(reads) // 2
+
+
+def test_fused_stage2pe_zero_diff_iupac_parity(tmp_path):
+    """Regression: a PE candidate whose IUPAC-biased popcount distance is
+    0 despite a real mismatch must be scored as the reference scores
+    every zero-diffs candidate (best_single_score, no alignment), not by
+    the banded DP; otherwise the mated end's NM (recovered from that
+    score) differs.  Simulated pairs over the Y-code genome hit this case
+    (one Y surplus cancelling one mutation)."""
+    from abismal_tpu.map.engine import run_map
+    from abismal_tpu.map.pipeline import (
+        make_native_engine_factory, make_tpu_native_engine_factory,
+    )
+    from abismal_tpu.sim.simreads import SimConfig, simulate_reads
+
+    idx, _reads = _negdiff_fixture(tmp_path)
+    simulate_reads(str(tmp_path / "negd.fa"), SimConfig(
+        output_prefix=str(tmp_path / "p"), n_reads=600, mutation_rate=0.01,
+        bs_conv=0.98, seed=5))
+    fq1, fq2 = str(tmp_path / "p_1.fq"), str(tmp_path / "p_2.fq")
+    outs = []
+    for fac in (make_tpu_native_engine_factory(unit_batch=512, n_threads=2),
+                make_native_engine_factory(n_threads=2)):
+        sam = tmp_path / f"o{len(outs)}.sam"
+        run_map(idx, fq1, fq2, str(sam), None, "cl", engine_factory=fac,
+                threads=2)
+        outs.append(sam.read_text())
+    assert outs[0] == outs[1]
+    assert outs[1].count("NM:i:0") > 100

@@ -31,7 +31,8 @@ def main():
     from abismal_tpu.sim.simreads import SimConfig, simulate_reads
 
     g._tiny_index()  # ensure the cached serialized index exists
-    idx_path = "/tmp/abismal_tpu_test_cache/tRex1.idx"
+    idx_path = os.path.join(tempfile.gettempdir(), "abismal_tpu_test_cache",
+                            "tRex1.idx")
     genome = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tests", "data", "tRex1.fa")
     d = tempfile.mkdtemp(prefix="abismal_mh_")

@@ -4,11 +4,10 @@ profiler trace (SURVEY 5 north-star: kernel speed-of-light analysis).
 Runs a simulated 100bp SE workload through the selected engine and prints a
 stage table.  For the native engine the table is the in-library nanosecond
 accounting (seed / align / format / parse, summed across worker threads);
-for the hybrid TPU engine it is the Python-side stage accumulators (unit
+for the device engine it is the Python-side stage accumulators (unit
 prep / device dispatch / device collect / native stage-2).  --trace wraps
-the run in jax.profiler.trace so the device timeline can be inspected with
-TensorBoard / xprof (use tools/profile_stage1.py for an isolated stage-1
-kernel timeline).
+the run in jax.profiler.trace; tools/trace_ops.py device_times reduces it
+to device busy time and per-op kernel time.
 
 Usage:
   python tools/profile.py [--engine native|tpu] [--reads 10000]

@@ -1,6 +1,6 @@
 """Bisection profiler for the fused device stage-1+2 PE program (mirror
 of tools/profile_stage12.py): builds the stage12pe program cut at
-successive points and times each variant on the attached chip with a
+successive points and times each variant on the device with a
 realistic paired workload.  The per-cut deltas localize the cost.
 
 Usage: python tools/profile_stage12pe.py [unit_batch] [reps] [cuts...]
@@ -21,6 +21,7 @@ def main():
     import __graft_entry__ as g
     from abismal_tpu.map.pipeline import (
         TpuNativeEngine,
+        interpret_kernels,
         build_stage12pe,
         get_conv_is_ga,
     )
@@ -91,7 +92,7 @@ def main():
         prog, _ = build_stage12pe(
             eng.lmax, eng.dev.max_candidates, eng.dev.n_index2,
             eng.dev.n_index3, per=per, cand_per_unit=budget,
-            interpret=jax.default_backend() == "cpu", cut=cut,
+            interpret=interpret_kernels(), cut=cut,
             ext_iters=eng.dev.ext_iters, ext_pool=ext_pool)
         t0 = time.perf_counter()
         out = prog(*tables, *args)

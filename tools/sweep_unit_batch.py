@@ -1,7 +1,7 @@
-"""Sweep unit_batch for the flagship engine on the attached chip.
+"""Sweep unit_batch for the device engine on the GPU.
 
 Maps the 10k SE golden set once per size (after a warmup run to absorb
-the server-side compile) and prints reads/s + md5 check per size.
+the compile) and prints reads/s + md5 check per size.
 """
 
 import hashlib
